@@ -1,4 +1,4 @@
-"""Albedo-strategy microbench on the real chip: textured frame cost with
+"""Albedo-strategy microbench on the GPU: textured frame cost with
 bbox-window gathers vs full-frame gathers vs untextured, at 1080p and 720p.
 
 Isolates the render (fixed pose, slightly perturbed per scan iteration so
@@ -18,20 +18,20 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+    from simple_mmd_renderer.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import pose as pose_mod
-    from simple_mmd_renderer_tpu.render.pipeline import (build_packed_atlas,
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import pose as pose_mod
+    from simple_mmd_renderer.render.pipeline import (build_packed_atlas,
                                                          render_frame)
 
-    on_tpu = jax.default_backend() == "tpu"
-    density = 2.0 if on_tpu else 0.3
-    pm = sample_character(density=density)
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
+    pm = sample_character(density=2.0)
     static = model_mod.build_model(pm)
     b = static.n_bones
     rot = jnp.broadcast_to(jnp.asarray([0, 0, 0, 1.0], jnp.float32), (b, 4))
@@ -42,12 +42,12 @@ def main():
     textures = sample_textures()
     atlas = build_packed_atlas(textures)
 
-    n = 30 if on_tpu else 2
-    sizes = [(1920, 1080), (1280, 720)] if on_tpu else [(320, 180)]
+    n = 30
+    sizes = [(1920, 1080), (1280, 720)]
 
     def run(label, w, h, tex, window):
-        cfg = RenderConfig(width=w, height=h, shadow_map_size=2048 if on_tpu
-                           else 128, show_skybox=False, albedo_window=window)
+        cfg = RenderConfig(width=w, height=h, shadow_map_size=2048,
+                           show_skybox=False, albedo_window=window)
 
         def body(c, i):
             img = render_frame(
@@ -73,10 +73,10 @@ def main():
               f"windowed {win - base:.2f} ms", flush=True)
 
     # ---- component breakdown: where does the textured delta go?
-    from simple_mmd_renderer_tpu.render import raster as raster_mod
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render import raster as raster_mod
+    from simple_mmd_renderer.render.pipeline import (
         build_matrices, character_albedo, character_albedo_windowed)
-    from simple_mmd_renderer_tpu.ops.tiled_raster import rasterize_attrs_tiled
+    from simple_mmd_renderer.ops.tiled_raster import rasterize_attrs_tiled
 
     for w, h in sizes:
         cfg = RenderConfig(width=w, height=h, show_skybox=False)
@@ -92,7 +92,7 @@ def main():
                 attrs = (jnp.concatenate([jnp.asarray(normals), uvs], -1)
                          if n_attr_uv else jnp.asarray(normals))
                 vis, attr_px = rasterize_attrs_tiled(
-                    clip, tris, attrs, w, h, raster_mod.CULL_BACK, 6, 256)
+                    clip, tris, attrs, w, h, raster_mod.CULL_BACK, 16)
                 return c + jnp.mean(attr_px) + jnp.mean(vis.depth), None
             roll = jax.jit(lambda: jax.lax.scan(
                 body, jnp.float32(0.0),
@@ -110,7 +110,7 @@ def main():
         # albedo pass alone over a fixed visibility buffer
         vis0, attr0 = jax.jit(partial_raster := (lambda: rasterize_attrs_tiled(
             clip0, tris, jnp.concatenate([jnp.asarray(normals), uvs], -1),
-            w, h, raster_mod.CULL_BACK, 6, 256)))()
+            w, h, raster_mod.CULL_BACK, 16)))()
         tri_img = jax.block_until_ready(vis0.tri)
         uv_img = jax.block_until_ready(attr0[..., 3:5])
 

@@ -1,8 +1,8 @@
-"""Flagship-only throughput measurement (the bench.py headline row), for
-quick A/B of raster/bin experiments, e.g.:
+"""Flagship-only throughput measurement on the GPU (the bench.py headline
+row), for quick A/B of raster/bin experiments, e.g.:
 
-    python scripts/bench_flagship.py                      # current default
-    SMR_RUNGS=3/8,1/2,5/8 python scripts/bench_flagship.py
+    python scripts/bench_flagship.py                # current default
+    python scripts/bench_flagship.py 3/8,1/2,5/8    # another compaction ladder
 """
 
 import os
@@ -16,23 +16,24 @@ def main():
     import jax
     import numpy as np
 
-    from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+    from simple_mmd_renderer.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.ops import tiled_raster as tr
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.ops import tiled_raster as tr
 
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
-        width, height, shadow, density, frames = 1920, 1080, 2048, 2.0, 60
-    else:
-        width, height, shadow, density, frames = 320, 180, 128, 0.5, 5
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
+    if len(sys.argv) > 1:
+        tr.COMPACT_RUNGS = tuple(tuple(int(x) for x in r.split("/"))
+                                 for r in sys.argv[1].split(","))
+    width, height, shadow, density, frames = 1920, 1080, 2048, 2.0, 60
 
     pm = sample_character(density=density)
     static = model_mod.build_model(pm)
@@ -52,8 +53,10 @@ def main():
     for _ in range(3):
         t0 = time.time()
         state, cs = roll(state)
-        np.asarray(cs)
+        cs = np.asarray(cs)
         best = max(best, frames / (time.time() - t0))
+        assert np.isfinite(cs).all() and (np.abs(np.diff(cs)) > 0).any(), \
+            "frames did not advance"
     print(f"flagship: {best:.1f} fps (best of 3) rungs={tr.COMPACT_RUNGS}")
 
 

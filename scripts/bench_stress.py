@@ -1,8 +1,8 @@
-"""Stress benchmarks beyond bench.py's flagship point:
+"""Stress benchmarks beyond bench.py's flagship point, on the GPU:
 
 - large-mesh: high-density sample character (~56k verts / ~107k tris) at
-  1080p — the binning-cost cliff VERDICT round 1 flagged (14.2 fps then).
-- crowd: 64 vmapped instances with physics at 256x144 — BASELINE config 5.
+  1080p — where binning cost grows fastest.
+- crowd: 64 instances with physics at 256x144 — BASELINE config 5.
 
 Prints one line per measurement.
 """
@@ -18,19 +18,20 @@ def main():
     import jax
     import numpy as np
 
-    from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+    from simple_mmd_renderer.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.parallel import mesh as par
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.parallel import mesh as par
 
-    on_tpu = jax.default_backend() == "tpu"
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
     which = sys.argv[1:] or ["large", "crowd", "crowd-dense", "crowd-tex"]
 
     def scene_at(density, width, height, shadow=2048, frames=120,
@@ -45,10 +46,8 @@ def main():
         return Scene(static, ps, mo, cfg, part_textures=textures)
 
     if "large" in which:
-        scene = scene_at(4.0 if on_tpu else 0.5,
-                         1920 if on_tpu else 320, 1080 if on_tpu else 180,
-                         2048 if on_tpu else 128)
-        n = 30 if on_tpu else 3
+        scene = scene_at(4.0, 1920, 1080, 2048)
+        n = 30
         print(f"# large mesh: {len(scene.static.positions)} verts, "
               f"{len(scene.static.triangles)} tris", flush=True)
         roll = scene.jit_rollout(n, render=True)
@@ -83,29 +82,24 @@ def main():
               f"{n_inst * frames / dt:.0f} instance-frames/s "
               f"({frames / dt:.1f} crowd-steps/s)", flush=True)
 
-    n_inst = 64 if on_tpu else 4
-    w, h = (256, 144) if on_tpu else (64, 36)
-    frames = 30 if on_tpu else 2
-    shadow = 256 if on_tpu else 64
+    n_inst, w, h, frames, shadow = 64, 256, 144, 30, 256
 
     if "crowd" in which:
         run_crowd("crowd", scene_at(0.5, w, h, shadow), n_inst, frames)
 
     if "crowd-dense" in which:
         # 64 instances at the BENCH density (25.6k tris each -> 1.6M fused
-        # sort entries): past the old 2^18 packed-key ceiling the r2
-        # verdict flagged; exercises the dynamic key budget
-        run_crowd("crowd-dense", scene_at(2.0 if on_tpu else 0.5, w, h,
-                                          shadow), n_inst, frames)
+        # sort entries): past a 2^18 packed key; exercises the dynamic key
+        # budget
+        run_crowd("crowd-dense", scene_at(2.0, w, h, shadow), n_inst, frames)
 
     if "crowd-tex" in which:
-        # fused crowd with per-part textures AND native 4x MSAA (both were
-        # vmap-fallback features before round 3)
-        from simple_mmd_renderer_tpu.app.sample import sample_textures
+        # fused crowd with per-part textures AND native 4x MSAA
+        from simple_mmd_renderer.app.sample import sample_textures
         scene = scene_at(0.5, w, h, shadow,
                          textures=sample_textures((256, 128)))
         scene.config.render.msaa = 4
-        from simple_mmd_renderer_tpu.render.pipeline import (
+        from simple_mmd_renderer.render.pipeline import (
             crowd_render_supported)
         assert crowd_render_supported(scene.config.render,
                                       scene.part_textures)

@@ -18,18 +18,18 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+    from simple_mmd_renderer.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.render import pipeline as pl
-    from simple_mmd_renderer_tpu.render import raster
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.render import pipeline as pl
+    from simple_mmd_renderer.render import raster
 
     for density, label in [(2.0, "flagship"), (4.0, "stress")]:
         pm = sample_character(density=density)

@@ -2,7 +2,7 @@
 
 Compiles each pipeline piece separately (cache disabled) and prints wall
 times: raster kernel alone, render_frame, step_pose, step_and_render, and
-the 60-frame rollout. Run on the real TPU; nothing else may share the chip.
+the 60-frame rollout. Run on the GPU; nothing else may share the card.
 
 Usage: python scripts/profile_compile.py [piece ...]
 """
@@ -21,22 +21,20 @@ def main():
 
     # NO compilation cache: measure true compile times
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.render import pipeline as pl_mod
-    from simple_mmd_renderer_tpu.render import raster
-    from simple_mmd_renderer_tpu.ops import tiled_raster as tr
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.render import pipeline as pl_mod
+    from simple_mmd_renderer.render import raster
+    from simple_mmd_renderer.ops import tiled_raster as tr
 
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
-        width, height, shadow, density = 1920, 1080, 2048, 2.0
-    else:
-        width, height, shadow, density = 320, 180, 128, 0.5
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
+    width, height, shadow, density = 1920, 1080, 2048, 2.0
 
     pm = sample_character(density=density)
     static = model_mod.build_model(pm)
@@ -76,8 +74,9 @@ def main():
     def _():
         def f(v):
             clip = raster.transform_clip(v, mats["mvp"])
-            vis, a = tr.rasterize_attrs_tiled(clip, tris, normals, width,
-                                              height, raster.CULL_BACK, 6, 256)
+            vis, a = tr.rasterize_attrs_tiled(
+                clip, tris, normals, width, height, raster.CULL_BACK,
+                pl_mod._tiled_e_max(width, height))
             return vis.depth, a
         timed_compile("raster_attrs", f, verts)
 

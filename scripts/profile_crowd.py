@@ -17,23 +17,22 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+    from simple_mmd_renderer.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.parallel import mesh as par
-    from simple_mmd_renderer_tpu.render import pipeline as pl_mod
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.parallel import mesh as par
+    from simple_mmd_renderer.render import pipeline as pl_mod
 
-    on_tpu = jax.default_backend() == "tpu"
-    n_inst = 64 if on_tpu else 4
-    w, h, shadow = (256, 144, 256) if on_tpu else (64, 36, 64)
-    iters = 10 if on_tpu else 2
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
+    n_inst, w, h, shadow, iters = 64, 256, 144, 256, 10
 
     pm = sample_character(density=0.5)
     static = model_mod.build_model(pm)
@@ -78,9 +77,9 @@ def main():
                 positions + c * 1e-20, normals))
 
     def crowd_char_raster(c):
-        from simple_mmd_renderer_tpu.ops.tiled_raster import (
+        from simple_mmd_renderer.ops.tiled_raster import (
             rasterize_attrs_tiled)
-        from simple_mmd_renderer_tpu.render import raster
+        from simple_mmd_renderer.render import raster
         mats = pl_mod.build_matrices(cfg.render, aspect=w / h)
         tris = jnp.asarray(static.triangles)[:, ::-1]
         attrs = jnp.asarray(normals)
@@ -88,14 +87,15 @@ def main():
         def one(p, a):
             clip = raster.transform_clip(p * 0.1, mats["mvp"])
             vis, ap = rasterize_attrs_tiled(clip, tris, a, w, h,
-                                            raster.CULL_BACK, 6, 256)
+                                            raster.CULL_BACK,
+                                            pl_mod._tiled_e_max(w, h))
             return jnp.mean(ap) + jnp.mean(vis.depth)
         return jnp.mean(jax.vmap(one)(positions + c * 1e-20, normals))
 
     def crowd_shadow(c):
         mats = pl_mod.build_matrices(cfg.render, aspect=w / h)
         tris = jnp.asarray(static.triangles)[:, ::-1]
-        from simple_mmd_renderer_tpu.ops.tiled_raster import rasterize_tiled
+        from simple_mmd_renderer.ops.tiled_raster import rasterize_tiled
 
         def one(p):
             return jnp.mean(pl_mod.shadow_pass(

@@ -1,11 +1,7 @@
-"""Measure crowd inst-fps across feature configs (r4 VERDICT item 8).
-
-History: in r4, show_edges and double_sided excluded the fused path and fell
-back to vmap(render_frame) — measured 615 / 950 inst-fps vs the 1383 fused
-baseline (64 inst, textured + msaa=4, 256x144, TPU v5e). In r5 both were
-FUSED (edges: a second multi-instance raster over the displaced hull;
-double_sided: the shared nocull mask) — re-measured 844 / 1385: double-sided
-is free, edges cost one extra raster. Prints one line per config.
+"""Measure crowd inst-fps across feature configs on the GPU: the fused
+baseline (64 inst, textured + msaa=4, 256x144) against show_edges (a second
+multi-instance raster over the displaced hull) and double_sided (the shared
+nocull mask). Prints one line per config.
 
 Usage: python scripts/profile_crowd_fallback.py [n_inst] [frames]
 """
@@ -22,18 +18,20 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+    from simple_mmd_renderer.utils.cache import enable_compilation_cache
     enable_compilation_cache()
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.parallel import mesh as par
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.parallel import mesh as par
 
     n_inst = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     n_cf = int(sys.argv[2]) if len(sys.argv) > 2 else 20
@@ -69,8 +67,8 @@ def main():
         return f
 
     run("fused (baseline)", {})
-    run("show_edges (fused since r5)", {"show_edges": True})
-    run("double_sided (fused since r5)", {"double_sided": True})
+    run("show_edges", {"show_edges": True})
+    run("double_sided", {"double_sided": True})
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """Split bench.py's huge 'compile+first rollout' time into its parts:
 
 AOT lower, AOT compile, first execution, second execution — optionally with
-the persistent compilation cache enabled (bench enables it; the AOT bisect
-that measured 50 s did not).
+the persistent compilation cache enabled (bench enables it).
 
 Usage: python scripts/profile_first_run.py [cache]
 """
@@ -19,23 +18,21 @@ def main():
     import numpy as np
 
     if "cache" in sys.argv[1:]:
-        from simple_mmd_renderer_tpu.utils.cache import enable_compilation_cache
+        from simple_mmd_renderer.utils.cache import enable_compilation_cache
         enable_compilation_cache()
         print("# persistent compilation cache ENABLED", flush=True)
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
 
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
-        width, height, shadow, density, frames = 1920, 1080, 2048, 2.0, 60
-    else:
-        width, height, shadow, density, frames = 320, 180, 128, 0.5, 5
+    from simple_mmd_renderer.utils.device import describe
+    print(describe(), flush=True)
+    width, height, shadow, density, frames = 1920, 1080, 2048, 2.0, 60
 
     pm = sample_character(density=density)
     static = model_mod.build_model(pm)

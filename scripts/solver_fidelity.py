@@ -7,7 +7,7 @@ reference solve over the 4 s bench motion. The physics rig is identical to
 the bench scene's (bodies derive from the bone rig; mesh density does not
 affect them), so the curve transfers to bench.py's configuration directly.
 
-Run on CPU or TPU (results are hardware-independent to f32 rounding):
+Run on CPU or GPU (results are hardware-independent to f32 rounding):
     python scripts/solver_fidelity.py
 """
 
@@ -20,13 +20,13 @@ def build(iters):
     import jax
     import jax.numpy as jnp
 
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
+    from simple_mmd_renderer.config import AppConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
 
     pm = sample_character(density=0.3)   # bodies/joints identical at any density
     static = model_mod.build_model(pm)

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from simple_mmd_renderer_tpu.formats import pmx as P
+from simple_mmd_renderer.formats import pmx as P
 
 
 def _mat(name, n_tris, base, tex=-1):

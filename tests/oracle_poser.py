@@ -15,7 +15,7 @@ the production rig-program derivation cannot hide from the golden tests.
 
 import numpy as np
 
-from simple_mmd_renderer_tpu.formats import pmx as P
+from simple_mmd_renderer.formats import pmx as P
 
 F = np.float32
 EPS = 1e-8

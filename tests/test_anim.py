@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.core import anim as A
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.formats import vmd as V
-from simple_mmd_renderer_tpu.formats.writers import write_vmd
-from simple_mmd_renderer_tpu.utils import bezier
+from simple_mmd_renderer.core import anim as A
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.formats import vmd as V
+from simple_mmd_renderer.formats.writers import write_vmd
+from simple_mmd_renderer.utils import bezier
 
 from fixtures import two_bone_arm
 

@@ -1,14 +1,16 @@
 import os
+
+import pytest
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.formats import vmd as V
-from simple_mmd_renderer_tpu.formats.writers import write_vmd
-from simple_mmd_renderer_tpu.formats.hdr import parse_hdr, write_hdr
-from simple_mmd_renderer_tpu.render import camera_anim as CA
-from simple_mmd_renderer_tpu.utils.checkpoint import save_state, load_state
-from simple_mmd_renderer_tpu.utils.profiling import FrameStats, pass_scope
+from simple_mmd_renderer.formats import vmd as V
+from simple_mmd_renderer.formats.writers import write_vmd
+from simple_mmd_renderer.formats.hdr import parse_hdr, write_hdr
+from simple_mmd_renderer.render import camera_anim as CA
+from simple_mmd_renderer.utils.checkpoint import save_state, load_state
+from simple_mmd_renderer.utils.profiling import FrameStats, pass_scope
 
 
 def test_camera_track_sampling():
@@ -34,8 +36,8 @@ def test_camera_track_sampling():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from simple_mmd_renderer_tpu.core.physics import PhysicsState
-    from simple_mmd_renderer_tpu.core.scene import SimState
+    from simple_mmd_renderer.core.physics import PhysicsState
+    from simple_mmd_renderer.core.scene import SimState
     state = SimState(
         time=jnp.float32(1.25),
         physics=PhysicsState(
@@ -142,11 +144,11 @@ def test_reference_hdr_renders_end_to_end():
     if not os.path.isfile(path):
         import pytest
         pytest.skip("reference asset not present")
-    from simple_mmd_renderer_tpu.render import ibl
-    from simple_mmd_renderer_tpu.render.pipeline import render_frame
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import model as M
-    from simple_mmd_renderer_tpu.app.sample import sample_character
+    from simple_mmd_renderer.render import ibl
+    from simple_mmd_renderer.render.pipeline import render_frame
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import model as M
+    from simple_mmd_renderer.app.sample import sample_character
 
     img = parse_hdr(open(path, "rb").read())
     assert img.shape == (512, 1024, 3)  # the real 1k equirect
@@ -188,13 +190,13 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
     state mid-run and resuming reproduces the uninterrupted run
     BIT-IDENTICALLY for 30 frames (the same jitted step on the same
     state gives the same bits)."""
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as anim_mod
-    from simple_mmd_renderer_tpu.core import model as model_mod
-    from simple_mmd_renderer_tpu.core import physics as phys_mod
-    from simple_mmd_renderer_tpu.core.scene import Scene
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as anim_mod
+    from simple_mmd_renderer.core import model as model_mod
+    from simple_mmd_renderer.core import physics as phys_mod
+    from simple_mmd_renderer.core.scene import Scene
 
     pm = sample_character(density=0.3)
     static = model_mod.build_model(pm)
@@ -235,7 +237,7 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
 def test_cli_save_state_and_resume_flags(tmp_path):
     """--save-state / --resume reach the checkpoint layer from the CLI
     (flags exist, file written, resume loads and continues)."""
-    from simple_mmd_renderer_tpu.app import cli
+    from simple_mmd_renderer.app import cli
 
     ck = os.path.join(tmp_path, "run.npz")
     out1 = os.path.join(tmp_path, "a")
@@ -250,3 +252,114 @@ def test_cli_save_state_and_resume_flags(tmp_path):
                    "--density", "0.3", "--resume", ck, "--out", out2])
     assert rc == 0
     assert os.path.isfile(os.path.join(out2, "frame_00001.png"))
+
+
+def test_write_png_roundtrip(tmp_path):
+    """The CLI's stdlib PNG writer emits a valid 8-bit RGB PNG whose
+    decompressed scanlines are exactly the input pixels."""
+    import struct
+    import zlib
+
+    from simple_mmd_renderer.app.cli import ansi_frame, write_png
+
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 256, (7, 5, 3), dtype=np.uint8)
+    path = tmp_path / "f.png"
+    write_png(str(path), rgb)
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    chunks, pos = {}, 8
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks[tag] = body
+        pos += 12 + n
+    assert struct.unpack(">IIBBBBB", chunks[b"IHDR"]) == (5, 7, 8, 2, 0, 0, 0)
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    raw = raw.reshape(7, 1 + 5 * 3)
+    assert (raw[:, 0] == 0).all()
+    np.testing.assert_array_equal(raw[:, 1:].reshape(7, 5, 3), rgb)
+    assert b"IEND" in chunks
+    # the terminal preview needs no image library either
+    assert "\x1b[38;2;" in ansi_frame(rgb / 255.0, cols=4)
+
+
+def test_pytree_dataclass_replace_and_static_fields():
+    """utils.pytree.dataclass: data fields are pytree leaves, static fields
+    are jit metadata (a new value retraces, a new leaf value does not), and
+    replace() returns a modified copy of the frozen instance."""
+    import dataclasses
+
+    from simple_mmd_renderer.render.pipeline import PackedAtlas
+    from simple_mmd_renderer.utils import pytree
+
+    @pytree.dataclass
+    class Pair:
+        x: jnp.ndarray
+        n: int = pytree.field(static=True, default=2)
+
+    p = Pair(x=jnp.ones(3))
+    assert len(jax.tree.leaves(p)) == 1
+    q = p.replace(x=jnp.zeros(3))
+    assert q.n == 2 and not np.asarray(q.x).any() and np.asarray(p.x).all()
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        p.x = jnp.zeros(3)
+
+    traces = []
+
+    @jax.jit
+    def scale(pair):
+        traces.append(pair.n)          # a Python int at trace time
+        return pair.x * pair.n
+
+    np.testing.assert_array_equal(np.asarray(scale(p)), [2.0, 2.0, 2.0])
+    scale(p.replace(x=jnp.asarray(np.full(3, 5.0, np.float32))))
+    np.testing.assert_array_equal(np.asarray(scale(p.replace(n=3))),
+                                  [3.0, 3.0, 3.0])
+    assert traces == [2, 3]
+
+    atlas = PackedAtlas(data=jnp.ones((2, 2, 4), jnp.uint32),
+                        offsets=jnp.zeros((1, 2), jnp.int32),
+                        sizes=jnp.ones((1, 2), jnp.float32), eight_bit=True,
+                        mip_meta=((0, 0, 2, 2),))
+    leaves, tree = jax.tree.flatten(atlas)
+    assert len(leaves) == 3               # mip tables are None
+    back = jax.jit(lambda a: a)(atlas)
+    assert back.eight_bit is True and back.mip_meta == ((0, 0, 2, 2),)
+
+
+@pytest.mark.parametrize("backend,env", [("gpu", False), ("gpu", True),
+                                         ("cpu", False)])
+def test_compilation_cache_dir(monkeypatch, tmp_path, backend, env):
+    """On the GPU the persistent cache goes where JAX_COMPILATION_CACHE_DIR
+    says (JAX's own reading of it stays in force) and otherwise to the fixed
+    <repo>/.jax_cache; on the CPU nothing is turned on."""
+    from simple_mmd_renderer.utils import cache
+
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    before = {k: getattr(jax.config, k) for k in keys}
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    path = str(tmp_path / "cache")
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", path)
+        # what JAX did with the variable when it was imported
+        jax.config.update("jax_compilation_cache_dir", path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        got = cache.enable_compilation_cache()
+        now = jax.config.jax_compilation_cache_dir
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+    if backend == "cpu":
+        assert got == "" and now == before["jax_compilation_cache_dir"]
+        return
+    want = path if env else cache.DEFAULT_DIR
+    assert got == want and now == want
+    assert cache.DEFAULT_DIR == os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")

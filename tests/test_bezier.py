@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.utils import bezier
+from simple_mmd_renderer.utils import bezier
 
 
 def _bezier_exact(c0, c1, x, tol=1e-12):

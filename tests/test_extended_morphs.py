@@ -4,11 +4,11 @@ parses both and applies neither — poser_impl.inl:355-358)."""
 import numpy as np
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.core import pose as PO
-from simple_mmd_renderer_tpu.render.pipeline import render_frame
-from simple_mmd_renderer_tpu.config import RenderConfig
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.core import pose as PO
+from simple_mmd_renderer.render.pipeline import render_frame
+from simple_mmd_renderer.config import RenderConfig
 
 from fixtures import two_bone_arm
 
@@ -126,9 +126,9 @@ def test_ext_uv_morph_offsets_per_channel():
     assert (off[0] == 0).all() and (off[1, 1] == 0).all()
 
     # the Scene query surface: rest values + offsets
-    from simple_mmd_renderer_tpu.config import AppConfig
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.core import physics as PH
+    from simple_mmd_renderer.config import AppConfig
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.core import physics as PH
 
     class _Pose:
         leaf_rates = jnp.asarray(rates)

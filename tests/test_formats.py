@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.formats import vmd as V
-from simple_mmd_renderer_tpu.formats.writers import write_pmx, write_vmd
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.formats import vmd as V
+from simple_mmd_renderer.formats.writers import write_pmx, write_vmd
 
 from fixtures import two_bone_arm, ik_leg
 
@@ -121,7 +121,7 @@ def test_vmd_roundtrip():
 
 
 def test_native_loader_matches_python():
-    import simple_mmd_renderer_tpu.native as N
+    import simple_mmd_renderer.native as N
     from fixtures import two_bone_arm
     if N.get_lib() is None:
         import pytest
@@ -161,7 +161,7 @@ def test_vmd_light_track_roundtrip_and_sampling():
     np.testing.assert_array_equal(mo.light.frames, [0, 20])
     np.testing.assert_allclose(mo.light.colors[1], [1, 0, 0])
 
-    from simple_mmd_renderer_tpu.render.camera_anim import (bind_light,
+    from simple_mmd_renderer.render.camera_anim import (bind_light,
                                                             sample_light)
     la = bind_light(mo.light)
     # midpoint lerps color; direction renormalizes

@@ -12,10 +12,10 @@ struct.error / IndexError / numpy ValueError / MemoryError / hang.
 import numpy as np
 import pytest
 
-from simple_mmd_renderer_tpu.formats.pmd import parse_pmd
-from simple_mmd_renderer_tpu.formats.pmx import parse_pmx
-from simple_mmd_renderer_tpu.formats.vmd import parse_vmd
-from simple_mmd_renderer_tpu.utils.io import BinReader, ParseError
+from simple_mmd_renderer.formats.pmd import parse_pmd
+from simple_mmd_renderer.formats.pmx import parse_pmx
+from simple_mmd_renderer.formats.vmd import parse_vmd
+from simple_mmd_renderer.utils.io import BinReader, ParseError
 
 from wild_assets import build_wild_pmd, build_wild_pmx, build_wild_vmd
 
@@ -72,7 +72,7 @@ def test_byte_corruption(fmt):
 def test_pmx_truncation_python_fallback(monkeypatch):
     """The pure-python vertex loop (used when the native lib is absent)
     holds the same contract as native/pmx_fast.cpp."""
-    import simple_mmd_renderer_tpu.native as native_mod
+    import simple_mmd_renderer.native as native_mod
     monkeypatch.setattr(native_mod, "get_lib",
                         lambda: (_ for _ in ()).throw(OSError("no lib")))
     data = PARSERS["pmx"][1]
@@ -171,7 +171,7 @@ class TestForgedCounts:
         """The C parser's rc=-1 (overrun) surfaces as ParseError: a valid
         header claiming 4 vertices over 10 bytes of vertex data."""
         try:
-            from simple_mmd_renderer_tpu.native import get_lib
+            from simple_mmd_renderer.native import get_lib
             get_lib()
         except Exception:
             pytest.skip("native lib unavailable")

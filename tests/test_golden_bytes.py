@@ -19,8 +19,8 @@ import struct
 import numpy as np
 import pytest
 
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.formats import vmd as V
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.formats import vmd as V
 
 
 def f(*vals):
@@ -222,7 +222,7 @@ ENCODINGS = [
 def parse(request, monkeypatch):
     """Parse via the default (native if available) and the pure-python path."""
     if request.param:
-        import simple_mmd_renderer_tpu.native as native
+        import simple_mmd_renderer.native as native
 
         def no_native():
             raise RuntimeError("native disabled for test")
@@ -426,9 +426,9 @@ def test_vmd_golden_bytes():
 def test_vmd_camera_default_interp_is_linear():
     """MMD's default camera curve bytes (20,107,20,107) per channel are
     (c0.x, c1.x, c0.y, c1.y) — they must presample to the identity ramp."""
-    from simple_mmd_renderer_tpu.formats.vmd import CameraTrack
-    from simple_mmd_renderer_tpu.render.camera_anim import bind_camera
-    from simple_mmd_renderer_tpu.utils.bezier import LINEAR_LUT
+    from simple_mmd_renderer.formats.vmd import CameraTrack
+    from simple_mmd_renderer.render.camera_anim import bind_camera
+    from simple_mmd_renderer.utils.bezier import LINEAR_LUT
 
     interp = np.tile(np.asarray([20, 107, 20, 107], np.int8), (2, 6))
     track = CameraTrack(

@@ -22,11 +22,11 @@ import os
 import numpy as np
 import pytest
 
-from simple_mmd_renderer_tpu.app.sample import sample_character, sample_textures
-from simple_mmd_renderer_tpu.config import RenderConfig
-from simple_mmd_renderer_tpu.core.model import build_model
-from simple_mmd_renderer_tpu.render.pipeline import render_frame
-from simple_mmd_renderer_tpu.render import ibl as ibl_mod
+from simple_mmd_renderer.app.sample import sample_character, sample_textures
+from simple_mmd_renderer.config import RenderConfig
+from simple_mmd_renderer.core.model import build_model
+from simple_mmd_renderer.render.pipeline import render_frame
+from simple_mmd_renderer.render import ibl as ibl_mod
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 W, H = 192, 144
@@ -133,7 +133,7 @@ def test_golden_detects_shading_drift(monkeypatch):
     if not os.path.exists(path):
         pytest.skip("golden textured.png not generated yet")
     want = np.asarray(Image.open(path).convert("RGB"))
-    from simple_mmd_renderer_tpu.render import shade
+    from simple_mmd_renderer.render import shade
     orig = shade.shade_character
 
     def drifted(albedo, *a, **k):

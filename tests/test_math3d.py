@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from simple_mmd_renderer_tpu.utils import math3d as m3
+from simple_mmd_renderer.utils import math3d as m3
 
 
 def rand_quat(rng, n=()):

@@ -2,13 +2,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.app.sample import sample_character, sample_motion
-from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-from simple_mmd_renderer_tpu.core import anim as A
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.core import physics as PH
-from simple_mmd_renderer_tpu.core.scene import Scene
-from simple_mmd_renderer_tpu.parallel import mesh as par
+from simple_mmd_renderer.app.sample import sample_character, sample_motion
+from simple_mmd_renderer.config import AppConfig, RenderConfig
+from simple_mmd_renderer.core import anim as A
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.core import physics as PH
+from simple_mmd_renderer.core.scene import Scene
+from simple_mmd_renderer.parallel import mesh as par
 
 
 def _tiny_scene(render_size=48):
@@ -68,7 +68,7 @@ def test_crowd_sharded_over_mesh():
 def test_crowd_fused_render_matches_vmapped_pipeline():
     """The fused multi-instance render path must match vmapped render_frame
     (same geometry, same shading) up to raster tie-breaks."""
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     scene = _tiny_scene(render_size=64)
@@ -89,7 +89,7 @@ def test_crowd_fused_render_matches_vmapped_pipeline():
 
 
 def test_crowd_step_fn_uses_fused_path_when_supported():
-    from simple_mmd_renderer_tpu.render import pipeline as pl_mod
+    from simple_mmd_renderer.render import pipeline as pl_mod
     scene = _tiny_scene(render_size=32)
     import dataclasses
     scene.config.render = dataclasses.replace(scene.config.render,
@@ -104,8 +104,8 @@ def test_crowd_step_fn_uses_fused_path_when_supported():
 def test_crowd_fused_textured_matches_vmapped():
     """Fused crowd rendering with per-part textures (shared atlas) matches
     the single-instance textured pipeline per instance."""
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.app.sample import sample_textures
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     scene = _tiny_scene()
@@ -130,7 +130,7 @@ def test_crowd_fused_textured_matches_vmapped():
 def test_crowd_fused_msaa_matches_vmapped():
     """Fused crowd 4x MSAA (per-sample kernel over the instance grid)
     matches the single-instance native-MSAA pipeline per instance."""
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     scene = _tiny_scene()
@@ -155,7 +155,7 @@ def test_crowd_supported_predicate_excludes_unfused_features():
     since r5: edges are a second crowd raster over the displaced hull,
     double-sided a shared nocull mask)."""
     import dataclasses
-    from simple_mmd_renderer_tpu.render.pipeline import crowd_render_supported
+    from simple_mmd_renderer.render.pipeline import crowd_render_supported
     base = RenderConfig(raster_mode="tiled", show_skybox=False)
     assert crowd_render_supported(base)
     assert crowd_render_supported(
@@ -174,7 +174,7 @@ def test_crowd_supported_predicate_excludes_unfused_features():
 def test_crowd_fused_mmd_shading_matches_vmapped():
     """Fused crowd MMD toon/sphere shading (per-pixel stage vmapped over
     the fused raster buffers) matches the single-instance pipeline."""
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, render_frame)
 
     scene = _tiny_scene()
@@ -216,8 +216,8 @@ def test_crowd_fused_all_features_combined_matches_vmapped():
     double-sided + toon) matches render_frame per instance — pins the
     composite ORDER (edges under character, MSAA coverage blend last)
     across the fused paths."""
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.app.sample import sample_textures
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     scene = _tiny_scene()
@@ -258,8 +258,8 @@ def test_crowd_fused_extended_morphs_match_vmapped():
     """Fused per-instance extended morphs (UV offsets riding the attr
     instance axis; material factors modulating fused albedo) match the
     single-instance uv_offsets/part_color pipeline."""
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.app.sample import sample_textures
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, render_frame)
 
     scene = _tiny_scene()
@@ -305,8 +305,8 @@ def test_crowd_fused_extended_morphs_match_vmapped():
 def test_crowd_fused_skybox_matches_vmapped():
     """Fused crowd skybox (ONE camera-shared cube-sample pass broadcast to
     every instance) matches the single-instance skybox pipeline."""
-    from simple_mmd_renderer_tpu.render import ibl as ibl_mod
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render import ibl as ibl_mod
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     eq = np.zeros((8, 16, 3), np.float32)
@@ -342,7 +342,7 @@ def test_crowd_fused_skybox_matches_vmapped():
 def test_crowd_fused_edges_matches_vmapped():
     """Fused crowd edge outlines (second multi-instance raster over the
     inverted hull) match the single-instance edge pipeline per instance."""
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     scene = _tiny_scene()
@@ -370,7 +370,7 @@ def test_crowd_fused_edges_matches_vmapped():
 def test_crowd_fused_double_sided_matches_vmapped():
     """Fused crowd double-sided rendering (shared nocull mask + two-sided
     lighting) matches the single-instance pipeline per instance."""
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render.pipeline import (
         crowd_render_frame, crowd_render_supported, render_frame)
 
     scene = _tiny_scene()
@@ -446,7 +446,7 @@ def test_frame_banded_over_mesh_matches_single_scan():
 def test_frame_banded_over_mesh_matches_single_tiled_textured():
     """Same, through the PRODUCTION path: tiled Pallas raster (interpreter
     mode on CPU) + textured atlas + ground shadows, rows over 4 devices."""
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
+    from simple_mmd_renderer.app.sample import sample_textures
     import dataclasses
     scene = _tiny_scene(render_size=64)
     scene.config.render = dataclasses.replace(
@@ -460,10 +460,10 @@ def test_crowd_jit_textured_atlas_rides_as_argument():
     """crowd_jit with per-part textures must pass the packed atlas through
     jit as an ARGUMENT (replicated over the mesh), not bake it into the
     lowering as a constant (Scene.packed_atlas: large atlases baked as
-    constants blow up remote compilation). Covers both the fused path and
-    the vmap fallback (skybox forces it)."""
+    constants bloat every compile). Covers both the fused path and the vmap
+    fallback (the supersample-emulation MSAA forces it)."""
     import dataclasses
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
+    from simple_mmd_renderer.app.sample import sample_textures
 
     assert len(jax.devices()) >= 4
     mesh = par.make_mesh(jax.devices()[:4])
@@ -472,7 +472,7 @@ def test_crowd_jit_textured_atlas_rides_as_argument():
         scene.config.render, raster_mode="tiled", width=32, height=32)
     scene.part_textures = sample_textures(sizes=(16, 8))
 
-    from simple_mmd_renderer_tpu.render.pipeline import crowd_render_supported
+    from simple_mmd_renderer.render.pipeline import crowd_render_supported
     assert crowd_render_supported(scene.config.render, scene.part_textures)
     n = 8
     crowd = par.shard_crowd(par.crowd_init(scene, n), mesh)
@@ -482,17 +482,14 @@ def test_crowd_jit_textured_atlas_rides_as_argument():
     assert len(images.sharding.device_set) == 4
     assert np.isfinite(np.asarray(images)).all()
 
-    # vmap fallback branch (show_skybox unsupported by the fused path)
+    # vmap fallback branch (msaa_supersample unsupported by the fused path)
     scene_fb = _tiny_scene(render_size=32)
     scene_fb.config.render = dataclasses.replace(
         scene_fb.config.render, raster_mode="tiled", width=32, height=32,
-        show_skybox=True)
-    import jax.numpy as jnp_
-    scene_fb.cubemap = jnp_.ones((6, 8, 8, 3), jnp_.float32) * 0.25
+        msaa=4, msaa_supersample=True)
     scene_fb.part_textures = sample_textures(sizes=(16, 8))
     assert not crowd_render_supported(scene_fb.config.render,
-                                      scene_fb.part_textures,
-                                      scene_fb.cubemap)
+                                      scene_fb.part_textures)
     crowd_fb = par.shard_crowd(par.crowd_init(scene_fb, n), mesh)
     step_fb = par.crowd_jit(scene_fb, mesh, render=True, width=32, height=32)
     _, images_fb = step_fb(crowd_fb)
@@ -511,8 +508,8 @@ def test_crowd_compact_multipass_under_mesh_matches_per_instance():
 
     from jax.sharding import PartitionSpec as P
 
-    from simple_mmd_renderer_tpu.ops import tiled_raster
-    from simple_mmd_renderer_tpu.render import raster
+    from simple_mmd_renderer.ops import tiled_raster
+    from simple_mmd_renderer.render import raster
 
     assert len(jax.devices()) >= 4
     mesh = par.make_mesh(jax.devices()[:4])
@@ -555,7 +552,7 @@ def test_crowd_compact_multipass_under_mesh_matches_per_instance():
     assert len(attr.sharding.device_set) == 4
     for i in range(n_inst):
         ref_vis, ref_attr = tiled_raster.rasterize_attrs_tiled(
-            clip_b[i], tris, attr_b[i], w, h, raster.CULL_NONE, 8, 64)
+            clip_b[i], tris, attr_b[i], w, h, raster.CULL_NONE, 8)
         np.testing.assert_allclose(np.asarray(vis.depth[i]),
                                    np.asarray(ref_vis.depth), atol=2e-5)
         same = np.asarray(vis.tri[i]) == np.asarray(ref_vis.tri)
@@ -571,8 +568,8 @@ def test_crowd_fused_mip_textures_match_single_instance():
     weak #8: the crowd path silently sampled level 0)."""
     import dataclasses
 
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.app.sample import sample_textures
+    from simple_mmd_renderer.render.pipeline import (
         build_packed_atlas, crowd_render_frame, crowd_render_supported,
         render_frame)
 

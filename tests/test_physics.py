@@ -1,14 +1,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.core import pose as PO
-from simple_mmd_renderer_tpu.core import physics as PH
-from simple_mmd_renderer_tpu.config import PhysicsConfig
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.core import pose as PO
+from simple_mmd_renderer.core import physics as PH
+from simple_mmd_renderer.config import PhysicsConfig
 
 from fixtures import two_bone_arm
-from simple_mmd_renderer_tpu.utils import math3d as m3
+from simple_mmd_renderer.utils import math3d as m3
 
 
 def _body(name, bone, shape=P.SHAPE_SPHERE, dims=(1.0, 0, 0), pos=(0, 10, 0),
@@ -232,11 +232,11 @@ def test_sample_character_hair_hangs():
     """Regression: separated pairs must not act as phantom contacts (a cached
     depth clamp once sent the sample character's hair floating above its
     head)."""
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion)
-    from simple_mmd_renderer_tpu.core import anim as A
-    from simple_mmd_renderer_tpu.core.scene import Scene
-    from simple_mmd_renderer_tpu.config import AppConfig
+    from simple_mmd_renderer.core import anim as A
+    from simple_mmd_renderer.core.scene import Scene
+    from simple_mmd_renderer.config import AppConfig
 
     pm = sample_character(density=0.25)
     static = M.build_model(pm)

@@ -2,10 +2,10 @@ import struct
 
 import numpy as np
 
-from simple_mmd_renderer_tpu.formats import pmd as PMD
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.utils.io import encode_shift_jis
+from simple_mmd_renderer.formats import pmd as PMD
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.utils.io import encode_shift_jis
 
 
 def _build_pmd_bytes():
@@ -168,7 +168,7 @@ def test_pmd_rigid_bodies():
 
 def test_pmd_end_to_end_pose():
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.core import pose as PO
+    from simple_mmd_renderer.core import pose as PO
     m = PMD.parse_pmd(_build_pmd_bytes())
     static = M.build_model(m)
     b = static.n_bones

@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.core import pose as PO
-from simple_mmd_renderer_tpu.utils import math3d as m3
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.core import pose as PO
+from simple_mmd_renderer.utils import math3d as m3
 
 from fixtures import two_bone_arm, ik_leg
 from oracle_poser import OraclePoser
@@ -235,7 +235,7 @@ def test_matmul_skinning_bf16_weights_close():
     import dataclasses
 
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.ops.skinning import build_weight_matrix
+    from simple_mmd_renderer.ops.skinning import build_weight_matrix
 
     pm = two_bone_arm()
     static = M.build_model(pm)

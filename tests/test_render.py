@@ -1,11 +1,12 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.render import raster, camera as cam, shade, ibl
-from simple_mmd_renderer_tpu.render.pipeline import render_frame
-from simple_mmd_renderer_tpu.config import RenderConfig
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.formats import pmx as P
+from simple_mmd_renderer.render import raster, camera as cam, shade, ibl
+from simple_mmd_renderer.render.pipeline import render_frame
+from simple_mmd_renderer.config import RenderConfig
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.formats import pmx as P
 
 from fixtures import two_bone_arm
 
@@ -192,7 +193,7 @@ def test_frame_with_skybox():
 def test_ground_lit_map_matches_pcf():
     """Shadow-space PCF (fast path) vs per-pixel PCF (reference semantics)."""
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.render.pipeline import (build_matrices,
+    from simple_mmd_renderer.render.pipeline import (build_matrices,
                                                          ground_pass,
                                                          shadow_pass)
     static = _sphere_model()
@@ -264,7 +265,7 @@ def test_msaa_native_kernel_path():
 def test_edge_outline_pass():
     """show_edges draws the inverted-hull outline in the material's edge
     color around the silhouette, under the character."""
-    from simple_mmd_renderer_tpu.formats import pmx as P
+    from simple_mmd_renderer.formats import pmx as P
 
     static = _sphere_model(n=10)
     static.materials[0].draw_flags |= P.MAT_DRAW_EDGE
@@ -302,7 +303,7 @@ def test_edge_outline_pass():
 
 
 def test_build_model_edge_tables():
-    from simple_mmd_renderer_tpu.formats import pmx as P
+    from simple_mmd_renderer.formats import pmx as P
     from fixtures import two_bone_arm
     pm = two_bone_arm()
     pm.materials[0].draw_flags |= P.MAT_DRAW_EDGE
@@ -368,7 +369,7 @@ def test_mmd_extended_shading_toon_and_sphere():
 
 
 def test_load_toon_ramps_and_sphere_maps_defaults():
-    from simple_mmd_renderer_tpu.formats.textures import (
+    from simple_mmd_renderer.formats.textures import (
         default_toon_ramp, load_sphere_maps, load_toon_ramps)
     static = _sphere_model(n=6)
     # material references global toon 0 -> procedural default ramp
@@ -427,45 +428,53 @@ def test_double_sided_materials():
     assert shown[char].mean() > 0.4
 
 
-def test_pcf_kernel_matches_reference():
-    """ops/shadow_pcf.pcf_lit_map_tiled (the tiled PCF kernel used for
-    128-aligned shadow maps) is bit-exact vs the plain jnp 9-tap loop:
-    same edge padding, same compare, same /9."""
+def _ortho_light_vp():
+    """A plausible ortho light VP (looking down -y at a tilt)."""
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.ops import shadow_pcf
-    from simple_mmd_renderer_tpu.render.shade import (_ground_zref_plane,
-                                                      ground_lit_map)
-
-    rng = np.random.default_rng(7)
-    s = 256
-    smap = jnp.asarray(rng.random((s, s), np.float32))
-    # a plausible ortho light VP (looking down -y at a tilt)
-    from simple_mmd_renderer_tpu.render import camera as cam
-    light_dir = np.array([0.3, -1.0, 0.2], np.float32)
-    light_dir /= np.linalg.norm(light_dir)
-    view = cam.look_at(jnp.asarray(-50.0 * light_dir),
-                       jnp.zeros(3, jnp.float32),
+    from simple_mmd_renderer.render import camera as cam
+    ld = np.array([0.3, -1.0, 0.2], np.float32)
+    ld /= np.linalg.norm(ld)
+    view = cam.look_at(jnp.asarray(-50.0 * ld), jnp.zeros(3, jnp.float32),
                        jnp.asarray([0.0, 1.0, 0.0], jnp.float32))
-    proj = cam.orthographic(-5.0, 5.0, -5.0, 5.0, 0.1, 100.0)
-    light_vp = proj @ view
+    return cam.orthographic(-5.0, 5.0, -5.0, 5.0, 0.1, 100.0) @ view
 
-    z0, zc, zr = _ground_zref_plane(s, light_vp, 0.001)
-    kern = np.asarray(shadow_pcf.pcf_lit_map_tiled(smap, z0, zc, zr))
 
-    col = jnp.arange(s, dtype=jnp.float32)[None, :]
-    row = jnp.arange(s, dtype=jnp.float32)[:, None]
-    zref = z0 + zc * col + zr * row
-    pad = jnp.pad(smap, 1, mode="edge")
-    total = jnp.zeros_like(smap)
-    for dy in (0, 1, 2):
-        for dx in (0, 1, 2):
-            total = total + jnp.where(zref < pad[dy:dy + s, dx:dx + s],
-                                      1.0, 0.0)
-    ref = np.asarray(jnp.clip(total / 9.0, 0.0, 1.0))
-    np.testing.assert_array_equal(kern, ref)
-    # the dispatcher picks the kernel for this aligned size
-    np.testing.assert_array_equal(
-        np.asarray(ground_lit_map(smap, light_vp)), kern)
+def _numpy_pcf(smap, z0, zc, zr):
+    """Per-texel 3x3 PCF over an edge-clamped map: the fraction of taps
+    whose depth lies behind the ground's reference depth at the texel."""
+    s = smap.shape[-1]
+    out = np.zeros(smap.shape, np.float64)
+    for r in range(s):
+        for c in range(s):
+            zref = z0 + zc * c + zr * r
+            taps = smap[..., np.clip(np.arange(r - 1, r + 2), 0, s - 1), :][
+                ..., np.clip(np.arange(c - 1, c + 2), 0, s - 1)]
+            out[..., r, c] = (zref < taps).sum((-2, -1)) / 9.0
+    return out
+
+
+@pytest.mark.parametrize("lead,s", [((), 64), ((3,), 64), ((), 40)],
+                         ids=["single", "batched", "size40"])
+def test_ground_lit_map_matches_numpy_pcf(lead, s):
+    """shade.ground_lit_map (nine shifted compares in jnp) equals a per-texel
+    NumPy 3x3 PCF against the ground plane's reference depth, for a single
+    map, a batch [B,S,S] and a size no tile divides. Map depths sit 0.01..0.1
+    off the plane, so no comparison is within rounding of a tie."""
+    import jax.numpy as jnp
+    from simple_mmd_renderer.render.shade import (_ground_zref_plane,
+                                                  ground_lit_map)
+    vp = _ortho_light_vp()
+    z0, zc, zr = (float(v) for v in _ground_zref_plane(s, vp, 0.001))
+    assert max(abs(zc), abs(zr)) < 1e-3 * 64 / s
+    rng = np.random.default_rng(s + len(lead))
+    rows, cols = np.mgrid[0:s, 0:s]
+    off = rng.uniform(0.01, 0.1, lead + (s, s)) * rng.choice([-1, 1],
+                                                             lead + (s, s))
+    smap = (z0 + zc * cols + zr * rows + off).astype(np.float32)
+    got = np.asarray(ground_lit_map(jnp.asarray(smap), vp))
+    assert got.shape == lead + (s, s)
+    np.testing.assert_allclose(got, _numpy_pcf(smap, z0, zc, zr), atol=1e-6)
+    assert 0.0 < got.mean() < 1.0
 
 
 def test_upsample_bilinear_int_matches_resize():
@@ -474,7 +483,7 @@ def test_upsample_bilinear_int_matches_resize():
     the general gather formulation on the shadow-lit upsample."""
     import jax
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.render.pipeline import upsample_bilinear_int
+    from simple_mmd_renderer.render.pipeline import upsample_bilinear_int
 
     rng = np.random.default_rng(3)
     for f, (h, w) in ((2, (5, 7)), (4, (27, 48)), (3, (9, 16))):
@@ -486,21 +495,15 @@ def test_upsample_bilinear_int_matches_resize():
 
 
 def test_pcf_kernel_batched_and_vmapped():
-    """The PCF kernel batches natively over leading dims and re-dispatches
-    under vmap (custom_vmap): Pallas TPU cannot batch an ANY-space operand,
-    so the crowd paths (batched call; vmapped render_frame fallback) must
-    route through the native batch — all three agree exactly."""
+    """The lit map batches over leading dims: the crowd paths (a batched
+    call in the fused path; the vmapped render_frame fallback) agree
+    exactly with per-map calls."""
     import jax
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.render import camera as cam
-    from simple_mmd_renderer_tpu.render.shade import ground_lit_map
+    from simple_mmd_renderer.render.shade import ground_lit_map
 
     rng = np.random.default_rng(11)
-    ld = np.array([0.3, -1.0, 0.2], np.float32)
-    ld /= np.linalg.norm(ld)
-    view = cam.look_at(jnp.asarray(-50.0 * ld), jnp.zeros(3, jnp.float32),
-                       jnp.asarray([0.0, 1.0, 0.0], jnp.float32))
-    vp = cam.orthographic(-5.0, 5.0, -5.0, 5.0, 0.1, 100.0) @ view
+    vp = _ortho_light_vp()
     maps = jnp.asarray(rng.random((3, 256, 256), np.float32))
     per = np.stack([np.asarray(ground_lit_map(maps[i], vp))
                     for i in range(3)])

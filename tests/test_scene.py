@@ -2,13 +2,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.app.sample import sample_character, sample_motion
-from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-from simple_mmd_renderer_tpu.core import anim as A
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.core import physics as PH
-from simple_mmd_renderer_tpu.core.scene import Scene
-from simple_mmd_renderer_tpu.utils.checkpoint import save_state, load_state
+from simple_mmd_renderer.app.sample import sample_character, sample_motion
+from simple_mmd_renderer.config import AppConfig, RenderConfig
+from simple_mmd_renderer.core import anim as A
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.core import physics as PH
+from simple_mmd_renderer.core.scene import Scene
+from simple_mmd_renderer.utils.checkpoint import save_state, load_state
 
 
 def _scene(render=True):
@@ -76,7 +76,7 @@ def test_scene_checkpoint_resume(tmp_path):
 
 
 def test_cli_smoke(tmp_path):
-    from simple_mmd_renderer_tpu.app import cli
+    from simple_mmd_renderer.app import cli
     rc = cli.main(["--sample", "--frames", "2", "--width", "64",
                    "--height", "48", "--shadow-size", "32",
                    "--density", "0.25", "--out", str(tmp_path)])
@@ -87,9 +87,9 @@ def test_cli_smoke(tmp_path):
 
 
 def test_scene_with_camera_track():
-    from simple_mmd_renderer_tpu.formats import vmd as V
-    from simple_mmd_renderer_tpu.formats.writers import write_vmd
-    from simple_mmd_renderer_tpu.render.camera_anim import bind_camera
+    from simple_mmd_renderer.formats import vmd as V
+    from simple_mmd_renderer.formats.writers import write_vmd
+    from simple_mmd_renderer.render.camera_anim import bind_camera
     scene = _scene()
     data = write_vmd("cam", [], [], camera_keys=[
         {"frame": 0, "position": (0, 12, 0), "focal_length": -35.0,
@@ -139,7 +139,7 @@ def test_orthographic_camera_renders():
     """The VMD camera 'perspective off' flag selects an orthographic
     projection (vs the reference, which parses the flag and drops it)."""
     import dataclasses
-    from simple_mmd_renderer_tpu.render.pipeline import (build_matrices,
+    from simple_mmd_renderer.render.pipeline import (build_matrices,
                                                          render_frame)
     scene = _scene()
     state = scene.init_state()
@@ -164,7 +164,7 @@ def test_orthographic_camera_renders():
 def test_orbit_rig_keys_and_camera_override():
     """The --watch live camera: host-side orbit rig semantics (reference
     controller, main.cpp:2370-2480) and the traced camera_override path."""
-    from simple_mmd_renderer_tpu.app.cli import OrbitRig, apply_keys
+    from simple_mmd_renderer.app.cli import OrbitRig, apply_keys
     rcfg = RenderConfig()
     rig = OrbitRig(rcfg)
     e0 = rig.eye.copy()
@@ -199,9 +199,9 @@ def test_scene_with_light_track():
     light_motion_reader.inl declares but never implements."""
     import dataclasses
 
-    from simple_mmd_renderer_tpu.formats import vmd as V
-    from simple_mmd_renderer_tpu.formats.writers import write_vmd
-    from simple_mmd_renderer_tpu.render.camera_anim import bind_light
+    from simple_mmd_renderer.formats import vmd as V
+    from simple_mmd_renderer.formats.writers import write_vmd
+    from simple_mmd_renderer.render.camera_anim import bind_light
     # rim off: the flat-white sample character (albedo=1) otherwise clips
     # every channel at 1.0 (0.9 base + rim), which would erase the tint;
     # light from the camera side so visible normals get ndotl > 0
@@ -238,8 +238,8 @@ def test_apply_keys_split_escape_across_polls():
     """An arrow key's 3-byte escape sequence split across two poll() reads
     must still orbit (the incomplete tail is stashed and finished on the
     next call), and a lone mid-stream ESC stays a no-op."""
-    from simple_mmd_renderer_tpu.app.cli import OrbitRig, apply_keys
-    from simple_mmd_renderer_tpu.config import RenderConfig as RC
+    from simple_mmd_renderer.app.cli import OrbitRig, apply_keys
+    from simple_mmd_renderer.config import RenderConfig as RC
 
     rig = OrbitRig(RC())
     whole = OrbitRig(RC())
@@ -275,7 +275,7 @@ def test_seek_jit_is_cached_per_scene():
 def test_packed_atlas_invalidates_on_inplace_texture_replacement():
     """Scene.packed_atlas caches; replacing a texture IN PLACE in the list
     (same list object) must rebuild, not serve the stale atlas."""
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
+    from simple_mmd_renderer.app.sample import sample_textures
 
     scene = _scene()
     scene.part_textures = sample_textures(sizes=(16, 8))

@@ -1,13 +1,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from simple_mmd_renderer_tpu.formats.textures import (sample_bilinear,
+from simple_mmd_renderer.formats.textures import (sample_bilinear,
                                                       resolve_texture_path,
                                                       load_texture, WHITE_1X1)
-from simple_mmd_renderer_tpu.render import raster
-from simple_mmd_renderer_tpu.render.pipeline import (character_albedo,
+from simple_mmd_renderer.render import raster
+from simple_mmd_renderer.render.pipeline import (character_albedo,
                                                      _albedo_atlas)
-from simple_mmd_renderer_tpu.core import model as M
+from simple_mmd_renderer.core import model as M
 
 from fixtures import two_bone_arm
 
@@ -84,7 +84,7 @@ def test_character_albedo_dispatches_to_atlas():
 def test_shelf_atlas_packing_memory_and_placement():
     """Shelf packing allocates ~sum of areas, not n_parts * max_area, and
     never overlaps parts."""
-    from simple_mmd_renderer_tpu.render.pipeline import _pack_atlas
+    from simple_mmd_renderer.render.pipeline import _pack_atlas
     rng = np.random.default_rng(0)
     texs = [rng.random((256, 256, 3), np.float32)] + \
            [rng.random((32, 32, 3), np.float32) for _ in range(10)]
@@ -106,14 +106,14 @@ def test_textured_sample_renders():
     """End-to-end textured frame through the shelf atlas (sample character +
     procedural per-part textures)."""
     import jax
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_motion,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
-    from simple_mmd_renderer_tpu.core import anim as A
-    from simple_mmd_renderer_tpu.core import model as M
-    from simple_mmd_renderer_tpu.core import physics as PH
-    from simple_mmd_renderer_tpu.core.scene import Scene
+    from simple_mmd_renderer.config import AppConfig, RenderConfig
+    from simple_mmd_renderer.core import anim as A
+    from simple_mmd_renderer.core import model as M
+    from simple_mmd_renderer.core import physics as PH
+    from simple_mmd_renderer.core.scene import Scene
 
     pm = sample_character(density=0.25)
     static = M.build_model(pm)
@@ -133,7 +133,7 @@ def test_textured_sample_renders():
 def test_windowed_albedo_matches_full_frame():
     """The bbox-window albedo (lax.switch over static window sizes) must be
     exact (to f32 fusion rounding) on every covered pixel and white outside the character bbox."""
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.render.pipeline import (
         character_albedo_windowed)
     static = _two_part_model()
     rng = np.random.default_rng(5)
@@ -195,11 +195,11 @@ def test_deferred_uv_matches_kernel_uv_channels(n_parts):
     raster kernel to sub-texel accuracy on character-scale triangles."""
     import dataclasses
     import jax
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import pose as PO
-    from simple_mmd_renderer_tpu.render.pipeline import render_frame
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import pose as PO
+    from simple_mmd_renderer.render.pipeline import render_frame
     import jax.numpy as jnp
 
     pm = sample_character(density=0.3, n_parts=n_parts)
@@ -229,11 +229,11 @@ def test_textured_msaa_native_composes_with_deferred_uv():
     operating quality, main.cpp:2093-2146 + 2502-2504) must compose: the
     MS kernel's visibility buffer feeds the fused-row albedo path."""
     import dataclasses
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import pose as PO
-    from simple_mmd_renderer_tpu.render.pipeline import render_frame
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import pose as PO
+    from simple_mmd_renderer.render.pipeline import render_frame
 
     pm = sample_character(density=0.3)
     static = M.build_model(pm)
@@ -263,7 +263,7 @@ def test_mip_atlas_chain_tables():
     """build_packed_atlas(mip_levels=L): every level of every part is
     packed; level sizes halve (box filter, 8-bit-requantized for 8-bit
     sources); exhausted chains repeat their last level."""
-    from simple_mmd_renderer_tpu.render.pipeline import (build_packed_atlas,
+    from simple_mmd_renderer.render.pipeline import (build_packed_atlas,
                                                          _downsample2)
     rng = np.random.default_rng(11)
     t0 = (np.round(rng.random((32, 16, 3)) * 255) / 255).astype(np.float32)
@@ -290,7 +290,7 @@ def test_mip_rows_select_level_from_screen_area():
     (rows identical to the no-mip atlas); minified triangles address a
     higher level, scaling UVs into that level's texel space."""
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.render.pipeline import (affine_uv_part_rows,
+    from simple_mmd_renderer.render.pipeline import (affine_uv_part_rows,
                                                          build_packed_atlas)
     static = _two_part_model()
     rng = np.random.default_rng(12)
@@ -326,11 +326,11 @@ def test_mip_textured_frame_matches_at_magnification():
     minified frame must still render finite and non-white."""
     import dataclasses
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import pose as PO
-    from simple_mmd_renderer_tpu.render.pipeline import render_frame
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import pose as PO
+    from simple_mmd_renderer.render.pipeline import render_frame
 
     pm = sample_character(density=0.3)
     static = M.build_model(pm)
@@ -366,12 +366,13 @@ def test_resident_atlas_matches_level0_at_magnification():
     atlas render EXACTLY (same texels, relocated addressing); minified
     frames stay finite and close to the mip render."""
     import dataclasses
+    import jax
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import pose as PO
-    from simple_mmd_renderer_tpu.render.pipeline import render_frame
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import pose as PO
+    from simple_mmd_renderer.render.pipeline import render_frame
 
     pm = sample_character(density=0.3)
     static = M.build_model(pm)
@@ -386,11 +387,14 @@ def test_resident_atlas_matches_level0_at_magnification():
                        show_skybox=False, raster_mode="tiled",
                        shadows_enabled=False, texture_mips=3)
     cfg0 = dataclasses.replace(cfg, texture_mips=0)
-    img_l0 = np.asarray(render_frame(static, pos, nrm, cfg0,
-                                     part_textures=textures))
     cfg_res = dataclasses.replace(cfg, texture_resident=True)
-    img_res = np.asarray(render_frame(static, pos, nrm, cfg_res,
-                                      part_textures=textures))
+    # both renders compiled, as every production path runs them: the
+    # resident branch always runs compiled (inside lax.cond), and an eager
+    # level-0 render would differ from it by eager-vs-compiled rounding
+    img_l0, img_res = (np.asarray(jax.jit(
+        lambda p, n, c=c: render_frame(static, p, n, c,
+                                       part_textures=textures))(pos, nrm))
+        for c in (cfg0, cfg_res))
     # resident level = most-detailed needed level per part, applied to ALL
     # of the part's triangles; with tiny magnified textures that is level 0
     # everywhere (even silhouette slivers) -> must EXACTLY equal the
@@ -421,8 +425,8 @@ def test_resident_atlas_rejects_too_shallow_mip_chain():
     trace time (sz_hw addressing would otherwise overrun the slot)."""
     import jax.numpy as jnp
     import pytest
-    from simple_mmd_renderer_tpu.app.sample import sample_textures
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.app.sample import sample_textures
+    from simple_mmd_renderer.render.pipeline import (
         build_packed_atlas, build_resident_atlas)
 
     textures = sample_textures(sizes=(64, 64))
@@ -438,11 +442,11 @@ def test_atlas_argument_matches_traced_constant():
     crowd_jit/frame_jit vs. direct render take)."""
     import jax
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import pose as PO
-    from simple_mmd_renderer_tpu.render.pipeline import (build_packed_atlas,
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import pose as PO
+    from simple_mmd_renderer.render.pipeline import (build_packed_atlas,
                                                          render_frame)
 
     pm = sample_character(density=0.3)
@@ -477,12 +481,12 @@ def test_resident_capped_frame_falls_back_exact():
     slot, the resident path must degrade to off statically (no error)."""
     import dataclasses
     import jax.numpy as jnp
-    from simple_mmd_renderer_tpu.app.sample import (sample_character,
+    from simple_mmd_renderer.app.sample import (sample_character,
                                                     sample_textures)
-    from simple_mmd_renderer_tpu.config import RenderConfig
-    from simple_mmd_renderer_tpu.core import model as M
-    from simple_mmd_renderer_tpu.core import pose as PO
-    from simple_mmd_renderer_tpu.render.pipeline import (
+    from simple_mmd_renderer.config import RenderConfig
+    from simple_mmd_renderer.core import model as M
+    from simple_mmd_renderer.core import pose as PO
+    from simple_mmd_renderer.render.pipeline import (
         build_packed_atlas, render_frame, resident_fit_levels)
 
     pm = sample_character(density=0.3)

@@ -12,10 +12,10 @@ import os
 import numpy as np
 import pytest
 
-from simple_mmd_renderer_tpu.core import anim as A
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.formats import vpd as VPD
-from simple_mmd_renderer_tpu.utils.io import ParseError
+from simple_mmd_renderer.core import anim as A
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.formats import vpd as VPD
+from simple_mmd_renderer.utils.io import ParseError
 
 from fixtures import two_bone_arm
 
@@ -87,7 +87,7 @@ def test_vpd_pose_holds_at_every_time():
 def test_load_vpd_cli_end_to_end(tmp_path):
     """--pose holds a VPD through the CLI (here: merged over the sample
     motion, filling tracks the motion does not key)."""
-    from simple_mmd_renderer_tpu.app import cli
+    from simple_mmd_renderer.app import cli
 
     p = os.path.join(tmp_path, "pose.vpd")
     with open(p, "wb") as f:

@@ -17,20 +17,20 @@ import jax.numpy as jnp
 from wild_assets import (build_wild_pmx, build_wild_pmd, build_wild_vmd,
                          N_VERTS, N_TRIS, N_MATS, N_TEXS, N_BONES, N_RIGID,
                          N_JOINTS, IK_DEEP, IK_LINKS, SJIS_TRAPS, HALFWIDTH)
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.formats.pmd import parse_pmd
-from simple_mmd_renderer_tpu.formats import vmd as V
-from simple_mmd_renderer_tpu.core import model as M
-from simple_mmd_renderer_tpu.core import anim as A
-from simple_mmd_renderer_tpu.core import physics as PH
-from simple_mmd_renderer_tpu.core.scene import Scene
-from simple_mmd_renderer_tpu.config import AppConfig, RenderConfig
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.formats.pmd import parse_pmd
+from simple_mmd_renderer.formats import vmd as V
+from simple_mmd_renderer.core import model as M
+from simple_mmd_renderer.core import anim as A
+from simple_mmd_renderer.core import physics as PH
+from simple_mmd_renderer.core.scene import Scene
+from simple_mmd_renderer.config import AppConfig, RenderConfig
 
 
 @pytest.fixture(params=[False, True], ids=["native", "python"])
 def parse(request, monkeypatch):
     if request.param:
-        import simple_mmd_renderer_tpu.native as native
+        import simple_mmd_renderer.native as native
 
         def no_native():
             raise RuntimeError("native disabled for test")

@@ -20,15 +20,15 @@ hand-sized golden fixtures (test_golden_bytes.py) do not:
   100000. Schema per `reader/vmd_reader_impl.inl:9-108`.
 
 The writers here are test-side and independent of the package
-(simple_mmd_renderer_tpu.formats.writers is never imported).
+(simple_mmd_renderer.formats.writers is never imported).
 """
 
 import struct
 
 import numpy as np
 
-from simple_mmd_renderer_tpu.formats import pmx as P
-from simple_mmd_renderer_tpu.utils.io import encode_shift_jis
+from simple_mmd_renderer.formats import pmx as P
+from simple_mmd_renderer.utils.io import encode_shift_jis
 
 
 def f(*vals):
